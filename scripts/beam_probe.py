@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Measure beam vs pigeonhole segment mapping at the bench scale (1 Gbp,
-65536 x 25bp segment rows) on the real chip: wall time + planted-hit
+65536 x 25bp segment rows) on the device: wall time + planted-hit
 recall at several pool factors."""
 
 import os
@@ -15,11 +15,9 @@ import bench
 
 
 def main():
-    import jax
+    from tophat_tpu.utils.compile_cache import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(bench.CACHE, "xla"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    enable_compile_cache()
 
     fm = bench.get_fm()
     print(f"# index loaded, kmer_k={fm.kmer_k}", flush=True)

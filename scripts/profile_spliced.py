@@ -23,11 +23,9 @@ import bench
 
 
 def main():
-    import jax
+    from tophat_tpu.utils.compile_cache import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(bench.CACHE, "xla"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    enable_compile_cache()
 
     fm = bench.get_fm()
     fm_d = fm.device_put()

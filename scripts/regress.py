@@ -13,10 +13,6 @@ import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 CASES_DIR = "/root/reference/tests/regression_tests/test_cases"
 ALL_CASES = [
     "test_SimpleSplicing", "test_3Segment", "test_ReverseComplementSplicing",

@@ -134,3 +134,44 @@ def test_align_reads_adaptive_repeats():
         assert placements(ad, i) == placements(wide, i)
     # the repeat reads really do have 24 placements
     assert len(placements(ad, 0)) == 24
+
+
+def _compaction_case(rng, B, W):
+    """Lane tables with positions in [2**16, 2**30] (beyond the 11
+    significant bits of TF32 and the 16-bit planes of a float product),
+    repeated keys and a random valid mask."""
+    valid = rng.random((B, W)) < 0.6
+    strand = rng.integers(0, 2, (B, W)).astype(np.int32)
+    pos = rng.integers(1 << 16, (1 << 30) + 1, (B, W)).astype(np.int32)
+    pos[:, 1::9] = pos[:, :1]               # equal keys: order must be stable
+    pos[:, -1] = 1 << 30
+    mm = rng.integers(0, 3, (B, W)).astype(np.int32)
+    return valid, strand, pos, mm
+
+
+def check_compaction(rng, B, W, width):
+    """ops.align's lane compaction against a numpy stable sort."""
+    import jax
+
+    from tophat_tpu.ops.align import _sort_lanes
+
+    valid, strand, pos, mm = _compaction_case(rng, B, W)
+    inv = (~valid).astype(np.int32)
+    got = jax.jit(_sort_lanes, static_argnums=2)(
+        [inv, strand, pos], [mm, valid.astype(np.int32)], width)
+    order = np.lexsort((pos, strand, inv), axis=1)[:, :width]
+    for a, g in zip((inv, strand, pos, mm, valid.astype(np.int32)), got):
+        exp = np.take_along_axis(a, order, axis=1)
+        exp = np.pad(exp, ((0, 0), (0, width - exp.shape[1])))
+        np.testing.assert_array_equal(np.asarray(g), exp)
+
+
+@pytest.mark.parametrize("width", [16, 96])
+def test_compaction_matches_stable_sort(rng, width):
+    check_compaction(rng, 64, 64, width)
+
+
+@pytest.mark.gpu
+def test_compaction_matches_stable_sort_full_width(rng):
+    """Production width on the card (B=16384 rows of 64 lanes)."""
+    check_compaction(rng, 16384, 64, 64)

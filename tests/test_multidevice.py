@@ -1,5 +1,5 @@
 """Multi-device execution of the PRODUCTION pipeline must be bit-identical
-to single-device execution (the TPU analog of the reference's requirement
+to single-device execution (the analog of the reference's requirement
 that -p N threads not change output; thread fan-out + deterministic merge,
 reference: src/tophat_reports.cpp:2742-2815, src/utils.cpp:22).
 

@@ -1,13 +1,13 @@
-"""tophat_tpu — a TPU-native spliced-read (RNA-Seq) alignment framework.
+"""tophat_tpu — a JAX spliced-read (RNA-Seq) alignment framework for the GPU.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of TopHat2
+A from-scratch JAX/XLA re-design of the capabilities of TopHat2
 (reference: DaehwanKimLab/tophat @ /root/reference): FM-index short-read
 alignment, segment-based splice-junction discovery, indel/fusion detection,
 spliced-alignment stitching and reporting — expressed as batched, jittable
-array programs sharded over TPU device meshes instead of a multi-process
+array programs sharded over device meshes instead of a multi-process
 CPU pipeline.
 
-Layer map (TPU-first, not a port — see SURVEY.md §7):
+Layer map (a re-design, not a port):
   index/     genome packing + FM-index (BWT, checkpointed Occ, SA) build on host
   ops/       device compute: rank/backward-search, pigeonhole align, splice ops
   pipeline/  the TopHat stages as pure JAX programs over read batches

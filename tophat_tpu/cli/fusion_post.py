@@ -2,7 +2,7 @@
 fusion candidates of one or more fusion-search runs.
 
 Re-implements the reference post-processor (src/tophat-fusion-post, 2924
-LoC) TPU-repo style. Same run layout: invoked in a directory containing
+LoC) in this repo's style. Same run layout: invoked in a directory containing
 `tophat_<sample>/` output dirs (each with fusions.out / junctions.bed /
 accepted_hits.sam|bam); writes `tophatfusion_out/` with
 

@@ -28,7 +28,7 @@ def resolve_genome_path(prefix: str) -> str:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tophat_tpu",
-        description="TPU-native spliced read mapper (TopHat-compatible)")
+        description="JAX spliced read mapper (TopHat-compatible)")
     p.add_argument("index", help="genome FASTA (or prefix with .fa)")
     p.add_argument("reads1", nargs="?", default=None,
                    help="comma-separated reads files (mate 1); may be "
@@ -299,10 +299,9 @@ def load_known_events(genome, ins_path, del_path, juncs_path):
 
 def _index_design_point(big: bool):
     """(kmer_k, sa_rate) for in-process index builds. Defaults: k=13
-    seed table + 1/4-sampled SA beyond 256 Mbp (conservative HBM
-    footprint; PERF.md's sweep shows k=14/sa_rate=2 is ~26% faster at
-    1 Gbp when the extra ~2.5 GiB HBM is available). Overridable with
-    $TOPHAT_TPU_KMER_K / $TOPHAT_TPU_SA_RATE."""
+    seed table + 1/4-sampled SA beyond 256 Mbp (a conservative device
+    memory footprint, chosen before the GPU port; to re-measure).
+    Overridable with $TOPHAT_TPU_KMER_K / $TOPHAT_TPU_SA_RATE."""
     kk = int(os.environ.get("TOPHAT_TPU_KMER_K", 13 if big else 0))
     sr = int(os.environ.get("TOPHAT_TPU_SA_RATE", 4 if big else 0))
     return kk, sr
@@ -312,6 +311,9 @@ def main(argv=None, resume=False):
     import sys as _sys
 
     argv = list(argv) if argv is not None else _sys.argv[1:]
+    from tophat_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     # -R/--resume <dir>: replay the original invocation recorded in the
     # stage journal (reference: doResume, src/tophat.py:240 — re-parses the
     # old argv from run.log and skips completed stages)
@@ -418,7 +420,7 @@ def main(argv=None, resume=False):
     logger = StageLogger(out_dir, argv=argv or sys.argv[1:])
 
     # multi-device: shard every device stage over a reads-axis mesh when
-    # more than one chip is visible (parallel/auto.py; the TPU analog of
+    # more than one device is visible (parallel/auto.py; the counterpart of
     # the reference's -p/--num-threads read-range fan-out, utils.cpp:22)
     from tophat_tpu.parallel import auto
     auto.auto_activate(log=logger.log)

@@ -3,7 +3,7 @@
 Replaces the roles of SeqAn packed Dna5 strings (reference: src/bwt_map.h:579
 RefSequenceTable) and gclib GFaSeqGet random-access FASTA fetch
 (reference: src/gclib/GFaSeqGet.cpp) with a single flat int8 code array plus a
-contig offset table — the layout a TPU wants: one gatherable device array in
+contig offset table — the layout the device wants: one gatherable array in
 global coordinates.
 
 Base coding: A=0, C=1, G=2, T=3, anything else (N/ambiguity)=4.

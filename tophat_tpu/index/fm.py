@@ -1,6 +1,6 @@
-"""FM-index: build on host, search on TPU.
+"""FM-index: build on host, search on the device.
 
-This is the TPU-native replacement for the external Bowtie FM-index
+This is the device-side replacement for the external Bowtie FM-index
 (reference: src/tophat.py:2286-2353 drives `bowtie2` as a subprocess; the
 index itself lives in .ebwt/.bt2 files). Here the index is a set of device
 arrays designed for batched rank queries:

@@ -4,7 +4,7 @@ The reference maps colorspace reads with bowtie -C against a color-encoded
 index and decodes alignments back to bases with a reference-guided decoder
 (reference: src/tophat.py:2896-2928 colorspace driver flags, the FIFO decode
 path :2193-2244, and BWA_decode in src/long_spanning_reads.cpp /
-segment_juncs.cpp). The TPU-native counterpart here:
+segment_juncs.cpp). The device-side counterpart here:
 
 - the genome transforms into color space ONCE (`genome_to_color`) — the
   dinucleotide-transition code is XOR under the A=0 C=1 G=2 T=3 encoding

@@ -3,29 +3,43 @@
 The reference ships its runtime as C++ binaries; here the pieces that stay
 host-side and performance-critical are C++ shared libraries:
   sais.cpp — linear-time suffix array construction (index build)
-Build artifacts land next to the sources; a build failure degrades to the
-pure-numpy fallbacks rather than erroring.
+Build artifacts land next to the sources, named by a hash of the source
+and the compiler flags, so a library is always the build of the source
+beside it; a build failure degrades to the pure-numpy fallbacks rather
+than erroring.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
+_CXXFLAGS = ["-O2", "-shared", "-fPIC", "-pthread", "-std=c++17"]
+
+
+def lib_path(name: str, extra_flags=()) -> str:
+    """Path of the shared library built from <name>.cpp with these flags."""
+    with open(os.path.join(_DIR, f"{name}.cpp"), "rb") as f:
+        h = hashlib.sha256(f.read())
+    h.update("\0".join(_CXXFLAGS + list(extra_flags)).encode())
+    return os.path.join(_DIR, f"lib{name}.{h.hexdigest()[:16]}.so")
 
 
 def _build_and_load(name: str, extra_flags=()):
-    src = os.path.join(_DIR, f"{name}.cpp")
-    so = os.path.join(_DIR, f"lib{name}.so")
-    if (not os.path.exists(so)
-            or os.path.getmtime(so) < os.path.getmtime(src)):
-        cmd = (["g++", "-O2", "-shared", "-fPIC", "-pthread",
-                "-std=c++17", src, "-o", so] + list(extra_flags))
+    so = lib_path(name, extra_flags)
+    if not os.path.exists(so):
+        # build under a private name, then rename: concurrent builders
+        # (test workers) never load a half-written library
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = (["g++"] + _CXXFLAGS + [os.path.join(_DIR, f"{name}.cpp"),
+                                      "-o", tmp] + list(extra_flags))
         subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, so)
     return ctypes.CDLL(so)
 
 
@@ -42,6 +56,13 @@ class _Sais:
                 ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
                 ctypes.POINTER(ctypes.c_int64)]
         return self._lib
+
+    @property
+    def available(self) -> bool:
+        try:
+            return self.lib is not None
+        except (OSError, subprocess.CalledProcessError):
+            return False
 
     def bwt_from_sa(self, codes: np.ndarray, sa: np.ndarray):
         """Threaded BWT gather; returns (bwt int8[n+1], primary)."""

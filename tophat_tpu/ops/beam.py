@@ -11,7 +11,7 @@ This module covers the same placements as the engine the reference shells
 out to (bowtie1 -v 2 per segment, reference src/tophat.py:2339-2344) —
 including the split-pair (one mismatch in each half) case bowtie reaches
 through its double index — with a search plan that is all fixed-depth
-scans, table lookups and flat gathers (the shapes TPUs like):
+scans, table lookups and flat gathers (fixed shapes that jit):
 
   1. Half seeds: split the segment at its midpoint into prefix P and
      suffix S; an alignment with mm(S) = 0 is an exact occurrence of S,
@@ -254,8 +254,8 @@ def _beam_core(fm, rows, lengths, offsets, *, n_steps: int, max_mm: int,
     # scatter-added deltas + row cumsums (piecewise-linear
     # reconstruction), and the per-read verify operands broadcast along
     # the row, so the per-lane gather count (the currency of this
-    # engine: ~13-15 ns each on v5e) stays at ~3 instead of the ~11 a
-    # flat global compaction costs.
+    # engine) stays at ~3 instead of the ~11 a flat global compaction
+    # costs.
     lo_list = [lo2[:B, None], lo2[B:, None]]
     hi_list = [hi2[:B, None], hi2[B:, None]]
     off_list = [h[:, None], jnp.zeros((B, 1), jnp.int32)]
@@ -388,7 +388,9 @@ def beam_plan(fm, L: int, lengths_np, max_mismatches: int):
     mu_base = fm.n / 4 ** (L // 2) + fm.n / 4 ** (L - L // 2)
     exp = mu_base + nv * fm.n / 4 ** max(K, 1) if split_pair else mu_base
     spc = int(np.clip(exp + 6 * np.sqrt(max(exp, 1)) + 48, 128, 8192))
-    spc = -(-spc // 128) * 128          # lane-tile-friendly width
+    # 128-lane rounding: chosen for an earlier accelerator's tiles; kept
+    # until re-measured on the GPU
+    spc = -(-spc // 128) * 128
     return dict(n_steps=n_steps, max_mm=max_mismatches, cap_s=cap_s,
                 cap_p=cap_p, cap_v=cap_v, spc=spc,
                 split_pair=split_pair, nsw=nsw, h_max=h_max,

@@ -10,7 +10,13 @@ bases end at `left` and the rest resumes at `right`, the mismatch count
 splits into a prefix term and a suffix term. Sweeping t is a cross-
 correlation between the one-hot read and the one-hot genome flank, so the
 whole (read x event x split) mismatch volume is two conv_general_dilated
-calls — dense MXU work instead of a per-candidate seed-and-extend loop.
+calls — dense matrix-unit work instead of a per-candidate seed-and-extend
+loop.
+
+Precision: every product is formed from 0/1 one-hots in bfloat16 with
+float32 accumulation. 0 and 1 are exact in bfloat16 and the match counts
+are integers <= L, far below 2**24, so the counts are exact (tolerance 0)
+whatever reduced-precision mode the matrix unit runs in.
 
 Split semantics per kind:
   junction/deletion: read[0:t] ends at left; read[t:] starts at right
@@ -29,8 +35,6 @@ import numpy as np
 from tophat_tpu.ops.splice import KIND_INSERTION
 
 MAX_INS = 8  # inserted-sequence slot width
-
-_PALLAS_BROKEN = [False]  # set when the Mosaic kernel fails to compile
 
 
 def _one_hot(codes, dtype):
@@ -55,7 +59,7 @@ def realign_chunk(genome, readsg, lengths, ev_left, ev_right, ev_kind,
     n = genome.shape[0]
     R, L = readsg.shape
     E = ev_left.shape[0]
-    dt = jnp.bfloat16   # one-hot inputs are 0/1; products exact, f32 accum
+    dt = jnp.bfloat16   # 0/1 one-hots: exact products, f32 accumulation
 
     X = _one_hot(readsg, dt)                                   # (R, L, 4)
 
@@ -71,7 +75,8 @@ def realign_chunk(genome, readsg, lengths, ev_left, ev_right, ev_kind,
 
     dn = jax.lax.conv_dimension_numbers((E, 4, L), (R, 4, L),
                                         ("NCW", "OIW", "NCW"))
-    # matchL[e, r, lag] = sum_u X[r, u] * YL[e, u + lag]
+    # matchL[e, r, lag] = sum_u X[r, u] * YL[e, u + lag]; both convs take
+    # bf16 0/1 operands with f32 accumulation, so the counts are exact
     matchL = jax.lax.conv_general_dilated(
         jnp.moveaxis(YL, -1, 1), jnp.moveaxis(X, -1, 1),
         window_strides=(1,), padding=((0, L - 1),), dimension_numbers=dn,
@@ -118,35 +123,70 @@ def realign_chunk(genome, readsg, lengths, ev_left, ev_right, ev_kind,
     return best_t, jnp.where(ok, best, big), ok
 
 
+def prepare_inputs(genome, readsg, ev_left, ev_right, ev_kind, ev_ins_seq,
+                   q: int, L: int):
+    """bf16 one-hot operands of realign_scan.
+
+    Mirrors realign_chunk's flank construction: the left flank ends at
+    ev_left; the right-hand target is the concatenation [inserted_seq (q) |
+    flankR], flankR starting at ev_right (junction, deletion, fusion) or
+    ev_left + 1 (insertion), so ONE lag slice covers both the inserted
+    bases and the suffix. Returns X (R, L*4) and the zero-padded flank
+    volumes YLpadT, YCpadT (2L*4, E), base axis first so that each split's
+    lag is a slice of the leading axis."""
+    genome = jnp.asarray(genome)
+    n = genome.shape[0]
+    E = ev_left.shape[0]
+    R = readsg.shape[0]
+
+    X = _one_hot(jnp.asarray(readsg, jnp.int32), jnp.bfloat16)
+
+    li = ev_left[:, None] - (L - 1) + jnp.arange(L, dtype=jnp.int32)
+    flankL = jnp.where((li >= 0) & (li < n),
+                       genome[jnp.clip(li, 0, n - 1)].astype(jnp.int32), 5)
+    r_start = jnp.where(ev_kind == KIND_INSERTION, ev_left + 1, ev_right)
+    ri = r_start[:, None] + jnp.arange(L - q, dtype=jnp.int32)
+    flankR = jnp.where((ri >= 0) & (ri < n),
+                       genome[jnp.clip(ri, 0, n - 1)].astype(jnp.int32), 5)
+    seq = jnp.asarray(ev_ins_seq[:, :q], jnp.int32) if q else jnp.zeros(
+        (E, 0), jnp.int32)
+    combined = jnp.concatenate([seq, flankR], axis=1)      # (E, L)
+
+    zL = jnp.zeros((E, L, 4), jnp.bfloat16)
+    YLpad = jnp.concatenate([_one_hot(flankL, jnp.bfloat16), zL], axis=1)
+    YCpad = jnp.concatenate([zL, _one_hot(combined, jnp.bfloat16)], axis=1)
+    return (X.reshape(R, -1), YLpad.reshape(E, -1).T,
+            YCpad.reshape(E, -1).T)
+
+
 @partial(jax.jit, static_argnames=("L", "q", "max_mm"))
 def realign_scan(X, YLpadT, YCpadT, lengths, *, L: int, q: int,
                  max_mm: int):
-    """The Pallas realign algorithm in plain XLA: a scan over split points
-    t, each step two bf16 MXU matmuls against lag-shifted flank slices,
-    folding straight into running (best, best_t) — HBM traffic O(R*E) per
-    step instead of the conv path's O(R*E*L) materialized volumes. Same
-    inputs as realign_pallas (prepare_inputs: transposed flanks, base
-    axis first with channel stride C)."""
-    from tophat_tpu.ops.pallas.realign_kernel import C
+    """realign_chunk's result as a scan over split points t: each step is
+    two bf16 matmuls against lag-shifted flank slices, folded straight into
+    running (best, best_t), so memory traffic is O(R*E) per step instead
+    of the conv path's materialized O(R*E*L) volumes. Inputs come from
+    prepare_inputs; every event of a call has insertion length q.
 
+      mm(t) = [t - matchL(lag L-t)] + [(len - t) - matchC(lag L-t)]
+
+    over the interior splits 1 <= t <= len - 1 - q."""
     R = X.shape[0]
     E = YLpadT.shape[1]
-    Xb = X.astype(jnp.bfloat16)
-    YLb = YLpadT.astype(jnp.bfloat16)
-    YCb = YCpadT.astype(jnp.bfloat16)
     lens = lengths[:, None].astype(jnp.int32)
     big = jnp.float32(32767.0)
 
     def body(carry, t):
         best, bestt = carry
-        sl = (L - t) * C
-        yl = jax.lax.dynamic_slice_in_dim(YLb, sl, L * C, axis=0)
-        yc = jax.lax.dynamic_slice_in_dim(YCb, sl, L * C, axis=0)
+        sl = (L - t) * 4
+        yl = jax.lax.dynamic_slice_in_dim(YLpadT, sl, L * 4, axis=0)
+        yc = jax.lax.dynamic_slice_in_dim(YCpadT, sl, L * 4, axis=0)
+        # 0/1 bf16 operands, f32 accumulation: exact (module docstring)
         matchL = jax.lax.dot_general(
-            Xb, yl, (((1,), (0,)), ((), ())),
+            X, yl, (((1,), (0,)), ((), ())),
             preferred_element_type=jnp.float32)
         matchC = jax.lax.dot_general(
-            Xb, yc, (((1,), (0,)), ((), ())),
+            X, yc, (((1,), (0,)), ((), ())),
             preferred_element_type=jnp.float32)
         mm = (t.astype(jnp.float32) - matchL) + (
             (lens - t).astype(jnp.float32) - matchC)
@@ -165,16 +205,15 @@ def realign_scan(X, YLpadT, YCpadT, lengths, *, L: int, q: int,
 
 
 def realign_events(genome, readsg, lengths, events, max_mm: int,
-                   chunk: int = 128, backend: str = "auto"):
+                   chunk: int = 128):
     """Host wrapper: chunk the event table to bound device memory.
 
     events: dict of numpy arrays (left, right, kind, ins_len, ins_seq,
     valid). Returns (best_t, mm, ok) as (R, E) numpy arrays.
 
-    Routing: with an active mesh, the conv path (it row-shards over the
-    reads axis). Single-device: the fused Pallas kernel when Mosaic
-    accepts it, else the scan-of-matmuls path (realign_scan) — both
-    grouped by insertion length."""
+    Routing: with an active mesh, the conv path realign_chunk (it
+    row-shards over the reads axis); otherwise realign_scan, grouped by
+    insertion length."""
     E = len(events["left"])
     R = readsg.shape[0]
     if E == 0:
@@ -182,36 +221,12 @@ def realign_events(genome, readsg, lengths, events, max_mm: int,
                 np.zeros((R, 0), bool))
     from tophat_tpu.parallel import auto
 
-    if backend == "auto":
-        if auto.active() is not None:
-            backend = "xla"
-        elif (jax.default_backend() == "tpu" and readsg.shape[1] >= 16
-                and not _PALLAS_BROKEN[0]):
-            backend = "pallas"
-        else:
-            backend = "scan"
-    if backend == "pallas":
-        try:
-            return _realign_events_grouped(genome, readsg, lengths, events,
-                                           max_mm, impl="pallas")
-        except Exception as e:  # Mosaic/compile issues: fall back
-            # remember the failure — a failing Mosaic compile attempt
-            # costs ~10s EVERY call (failures aren't cached)
-            _PALLAS_BROKEN[0] = True
-            import warnings
-
-            warnings.warn(
-                f"Pallas realign kernel unavailable ({type(e).__name__}); "
-                "using the scan path for this process")
-            backend = "scan"
-    if backend == "scan":
+    if auto.active() is None:
         return _realign_events_grouped(genome, readsg, lengths, events,
-                                       max_mm, impl="scan")
+                                       max_mm)
     # multi-device: rows sharded over the mesh's reads axis, events + genome
     # replicated (parallel/auto.py) — the realignment analog of the
     # reference's per-thread read ranges (tophat_reports.cpp:1231)
-    from tophat_tpu.parallel import auto
-
     (readsg_d, lengths_d), nrows = auto.shard_rows(readsg, lengths)
     genome_d = auto.replicated(genome)
     outs_t, outs_mm, outs_ok = [], [], []
@@ -237,8 +252,7 @@ def realign_events(genome, readsg, lengths, events, max_mm: int,
 def _pack_sparse(bt, mm, ok, n_ev, cap: int):
     """Device-side compaction of a realign (R, E) result to the flat ok
     entries (row, ev, t, mm) — the host boundary transfers ~n_ok records
-    instead of three dense (R, E) tables (the tables cost seconds through
-    a slow link at production shapes). Event columns >= n_ev are shape
+    instead of three dense (R, E) tables. Event columns >= n_ev are shape
     padding and masked out. Returns (row, ev, t, mm, count, overflow)."""
     R, E = ok.shape
     ok = ok & (jnp.arange(E, dtype=jnp.int32) < n_ev)[None, :]
@@ -258,18 +272,13 @@ def _pack_sparse(bt, mm, ok, n_ev, cap: int):
 
 
 def _realign_events_grouped(genome, readsg, lengths, events, max_mm: int,
-                            impl: str = "pallas", sparse: bool = False):
-    """Route realignment through a fused kernel (Pallas or the XLA scan),
-    one call per distinct insertion length (kernel requirement).
+                            sparse: bool = False):
+    """Route realignment through realign_scan, one call per distinct
+    insertion length (the scan's lag slice assumes one q per call).
 
     sparse=False: dense (R, E) host tables (best_t, mm, ok).
     sparse=True: flat (rows, evs, t, mm) numpy arrays of the ok entries,
     packed on device before the transfer."""
-    from tophat_tpu.ops.pallas.realign_kernel import (prepare_inputs,
-                                                      realign_pallas)
-
-    run = realign_pallas if impl == "pallas" else realign_scan
-
     R, L = readsg.shape
     E = len(events["left"])
     if sparse:
@@ -295,8 +304,8 @@ def _realign_events_grouped(genome, readsg, lengths, events, max_mm: int,
             genome, readsg, jnp.asarray(events["left"][idx_p]),
             jnp.asarray(events["right"][idx_p]), jnp.asarray(kinds[idx_p]),
             np.asarray(events["ins_seq"])[idx_p], int(q), L)
-        bt, m, o = run(X, YL, YC, lengths_d, L=L, q=int(q),
-                       max_mm=max_mm)
+        bt, m, o = realign_scan(X, YL, YC, lengths_d, L=L, q=int(q),
+                                max_mm=max_mm)
         k = len(idx)
         if sparse:
             cap = max(4 * R, 4096)
@@ -352,20 +361,5 @@ def realign_events_sparse(genome, readsg, lengths, events, max_mm: int,
         rr, ee = np.nonzero(ok)
         return (rr.astype(np.int32), ee.astype(np.int32),
                 bt[rr, ee].astype(np.int32), mm[rr, ee].astype(np.int32))
-    impl = "pallas"
-    if (_PALLAS_BROKEN[0] or jax.default_backend() != "tpu"
-            or readsg.shape[1] < 16):
-        impl = "scan"
-    if impl == "pallas":
-        try:
-            return _realign_events_grouped(genome, readsg, lengths, events,
-                                           max_mm, impl="pallas",
-                                           sparse=True)
-        except Exception:
-            _PALLAS_BROKEN[0] = True
-            import warnings
-
-            warnings.warn("Pallas realign kernel unavailable; using the "
-                          "scan path for this process")
     return _realign_events_grouped(genome, readsg, lengths, events,
-                                   max_mm, impl="scan", sparse=True)
+                                   max_mm, sparse=True)

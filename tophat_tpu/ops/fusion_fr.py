@@ -124,6 +124,10 @@ def scan_fr_pairs(genome, reads_f, reads_r, lengths, pairs: FrPairs,
 
 
 def _one_hot(codes, dtype=jnp.float32):
+    # The convolutions below multiply these 0/1 float32 one-hots at default
+    # precision. Where that means TF32 (on the GPU), 0 and 1 are still exact
+    # and products accumulate in float32, so the match counts (integers
+    # <= L) are exact.
     return (codes[..., None] == jnp.arange(4, dtype=codes.dtype)).astype(dtype)
 
 

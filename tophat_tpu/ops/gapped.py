@@ -4,7 +4,7 @@ The reference's default aligner is bowtie2 end-to-end `-k` with a driver-
 computed score floor: `--score-min C,-(mp_max*edit_dist + 2),0` with
 mp = 6,2 / rdg = rfg = 5,3 (reference: src/tophat.py:2328-2339, option
 assembly :2246-2353). Reads carrying one small indel align DIRECTLY —
-without the segment pipeline. This module reproduces that contract on TPU:
+without the segment pipeline. This module reproduces that contract on the device:
 
 For every unaligned read and every pigeonhole seed candidate q, one compare
 tensor over diagonal shifts s in [-g, g] yields prefix/suffix mismatch

@@ -3,7 +3,7 @@
 This is the device-side replacement for Bowtie's Occ-table walk (the hot
 kernel TopHat spends its alignment time in via the external `bowtie2`
 subprocess, reference: src/tophat.py:2286-2353). Formulated as pure gathers +
-popcounts so XLA vectorizes it over a whole read batch on the VPU.
+popcounts so XLA vectorizes it over a whole read batch.
 """
 
 from __future__ import annotations

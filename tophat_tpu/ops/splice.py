@@ -1,6 +1,6 @@
 """Splice-junction / indel discovery and event-based realignment.
 
-TPU-native re-design of segment_juncs + juncs_db + the spliced side of
+Device-side re-design of segment_juncs + juncs_db + the spliced side of
 long_spanning_reads (reference: src/segment_juncs.cpp, src/juncs_db.cpp,
 src/long_spanning_reads.cpp). Three ideas replace the reference's
 file-and-subprocess machinery:
@@ -22,7 +22,7 @@ file-and-subprocess machinery:
 
 3. Realignment against candidate events (the juncs_db FASTA -> bowtie ->
    rebase round-trip, juncs_db.cpp:109 + bwt_map.cpp:885) collapses into two
-   one-hot cross-correlations on the MXU: for every (read, event) pair the
+   one-hot cross-correlations on the matrix units: for every (read, event) pair the
    mismatch count of every split point comes from conv(read, left-flank) and
    conv(read, right-flank) lags. No flank FASTA, no second index.
 
@@ -394,10 +394,10 @@ def compact_by_valid(valid, arrays, cap: int):
 
     Cumsum + searchsorted-gather instead of argsort: a stable argsort over
     the flat window table (tens of millions of lanes) is a multi-pass
-    bitonic sort on TPU; instead, slot k of the output is element
+    sort; instead, slot k of the output is element
     searchsorted(cumsum(valid), k+1) — cap*log(n) binary-search work plus
-    plain gathers, fast on both TPU and the CPU test backend (where a
-    33M-lane scatter lowers to a serial loop)."""
+    plain gathers (on the CPU test backend a 33M-lane scatter lowers to a
+    serial loop)."""
     valid = valid.reshape(-1)
     if valid.shape[0] == 0:
         out = [jnp.zeros((cap,) + a.shape[1:], a.dtype) for a in arrays]

@@ -3,8 +3,8 @@
 Replaces the per-hit verification work Bowtie does internally and the SeqAn
 pattern-finding TopHat uses for window scans (reference:
 src/segment_juncs.cpp:2390 simpleSplitAlignment uses Myers bit-vector find).
-On TPU the whole candidate table is verified at once: one genome gather of
-shape (B, C, L) plus elementwise compares on the VPU.
+On the device the whole candidate table is verified at once: one genome
+gather of shape (B, C, L) plus elementwise compares.
 """
 
 from __future__ import annotations
@@ -89,16 +89,16 @@ def count_mismatches_packed(packed_genome, n_mask, pos, r_packed, bad_e,
                             dual_nwp: int = 0):
     """Word-packed replacement for gather_windows + count_mismatches:
     gathers ~L/16 uint32 words per candidate instead of L bytes and counts
-    mismatches with XOR + popcount on the VPU.
+    mismatches with XOR + popcount.
 
     pos: (B, C) candidate window starts. Caller must mask out-of-bounds
     candidates itself (their counts are garbage).
 
     The word axis is a static python loop, NOT a vectorized trailing dim:
-    every intermediate is one (B, C) plane. A (B, C, W+1) gather volume
-    with W+1 ~ 3 pads its trailing dims to the (8, 128) TPU tile — at the
-    beam engine's million-lane flat candidate sets that layout blowup is
-    a ~300x HBM allocation (observed as a 24 GiB OOM at 585 MB of data).
+    every intermediate is one (B, C) plane. This was chosen for an earlier
+    accelerator whose (8, 128) tiles padded a (B, C, W+1) gather volume
+    with W+1 ~ 3 about 300-fold; it is correct on the GPU and is kept
+    until it is re-measured there.
 
     dual_nwp > 0: packed_genome carries the appended 8-shifted copy
     (index/fm.FMIndex.pg_dual, primary region dual_nwp words). When the

@@ -1,7 +1,7 @@
 """Sharded pipeline step: the full align→segment→discover→realign flow as
 one pjit/shard_map program over a ("reads", "genome") mesh.
 
-Parallel layout (the TPU generalization of the reference's thread model,
+Parallel layout (the device-mesh generalization of the reference's thread model,
 see parallel/mesh.py):
   - read batch arrays are sharded over the "reads" axis (DP); the FM index
     is replicated, exactly like each boost::thread seeing the whole genome
@@ -33,21 +33,10 @@ from tophat_tpu.ops.verify import same_contig
 from tophat_tpu.parallel.mesh import GENOME_AXIS, READS_AXIS
 
 def shard_map(f, mesh, in_specs, out_specs):
-    """jax.shard_map across jax versions (replication checking off: the
-    step's cross-axis invariants are by construction, see module doc)."""
-    import inspect
-
-    if hasattr(jax, "shard_map"):
-        sm = jax.shard_map
-    else:  # older jax
-        from jax.experimental.shard_map import shard_map as sm
-    kwargs = dict(mesh=mesh, in_specs=in_specs, out_specs=out_specs)
-    params = inspect.signature(sm).parameters
-    if "check_vma" in params:
-        kwargs["check_vma"] = False
-    elif "check_rep" in params:
-        kwargs["check_rep"] = False
-    return sm(f, **kwargs)
+    """jax.shard_map with replication checking off: the step's cross-axis
+    invariants are by construction, see module doc."""
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
 
 
 def make_sharded_pipeline_step(mesh, *, read_len: int, segment_length: int,

@@ -98,7 +98,7 @@ class Params:
     #                                     v1.1.4 conventions
     no_sort_bam: bool = False           # --no-sort-bam: read-order output
     no_convert_bam: bool = False        # --no-convert-bam: SAM only
-    # engine tuning (TPU-side; no reference analog)
+    # engine tuning (device side; no reference analog)
     batch_size: int = 16384             # reads per device batch
     hits_per_seed: int = 32             # SA-interval truncation per seed
     max_alignments: int = 64            # per-read alignment slots

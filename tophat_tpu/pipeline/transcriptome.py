@@ -6,7 +6,7 @@ transcriptome-unmapped reads continue to the genome/segment stages
 (reference: src/tophat.py:3286-3326 map2gtf, :2400-2419 the _reads_vs_T
 pipe ending in map2gtf; src/map2gtf.cpp:234 trans_to_genomic_coords).
 
-TPU-native shape: the transcriptome is itself a concatenated "genome" whose
+Device-side shape: the transcriptome is itself a concatenated "genome" whose
 contigs are transcripts (exons joined, genome orientation — the
 gtf_to_fasta record layout, src/GTFToFasta.cpp:60), indexed with the same
 FM machinery as the genome, so reads spanning any number of ANNOTATED
